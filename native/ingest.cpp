@@ -1,6 +1,6 @@
 // Native graph-ingest and TSV-emit runtime for svinet-tpu.
 //
-// TPU-native counterpart of the reference's C++ data layer
+// Counterpart of the reference's C++ data layer
 // (reference: Network::read, src/network.cc:10-159, and the save_model
 // writers, src/linksampling.cc:804-837). The compute path is JAX/XLA;
 // this file is the host runtime around it: multithreaded edge-list

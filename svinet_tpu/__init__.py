@@ -1,11 +1,11 @@
-"""svinet-tpu: TPU-native stochastic variational inference for the
-(assortative) mixed-membership stochastic blockmodel.
+"""svinet-tpu: stochastic variational inference for the (assortative)
+mixed-membership stochastic blockmodel, in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-premgopalan/svinet (overlapping community detection on undirected networks),
-re-designed TPU-first: dense vectorized per-edge local steps, segment-sum
-scatter of sufficient statistics, pjit/shard_map data parallelism over edge
-shards with psum-reduced statistics, and Pallas kernels for the hot ops.
+A JAX/XLA framework with the capabilities of premgopalan/svinet
+(overlapping community detection on undirected networks), re-designed for
+accelerators: dense vectorized per-edge local steps, scatter-add of
+sufficient statistics, and shard_map data parallelism over edge shards
+with psum-reduced statistics.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Run configuration.
 
-TPU-native equivalent of the reference's ``Env`` struct
+Equivalent of the reference's ``Env`` struct
 (reference: src/env.hh:52-671): every hyperparameter in one dataclass,
 the output-directory naming scheme (src/env.hh:503-568), and the
 ``param.txt`` emission (src/env.hh:571-619).
@@ -126,7 +126,7 @@ class Config:
     eta0_gen: float = 4700.59
     eta1_gen: float = 0.77
 
-    # --- TPU execution -----------------------------------------------------
+    # --- device execution --------------------------------------------------
     num_devices: int = 0            # 0 = all visible devices
     edge_block: int = 8192          # padding granularity for edge arrays
     mesh_devices: int = 0           # -mesh N: data-parallel link-sampling
@@ -147,23 +147,19 @@ class Config:
     fuse_s3: bool = False           # -fuse-s3: fold the s3 cross-moment
                                     # gathers into the phi pass over a
                                     # packed (n,2K) array, lagging s3 by
-                                    # one sweep (README §Roofline; ~10%
-                                    # faster at the K=500 stretch shape)
+                                    # one sweep
     bf16_rows: bool = False         # -bf16: store the gathered Elogpi /
                                     # packed rows in bfloat16 (half the
-                                    # gather bytes — the roofline's
-                                    # dominant term); accumulation and
+                                    # gather bytes); accumulation and
                                     # all state stay f32
     prune: bool = False             # active-K column compaction after
-                                    # annealing (TPU form of the
+                                    # annealing (dense-layout form of the
                                     # reference's active-k pruning,
                                     # src/linksampling.cc:634-664);
-                                    # round-5 default OFF: the trigger
-                                    # regime is empty on real fits and
-                                    # the sparse union sweep loses to
-                                    # dense through K=8000 on the v5e
-                                    # (tools/sparse_crossover.py);
-                                    # enable with -prune
+                                    # default OFF: the trigger regime is
+                                    # empty on real fits (the GPU speed
+                                    # of the compact sweep is not
+                                    # measured yet); enable with -prune
     prune_frac: float = 0.5         # compact only when the padded active
                                     # width is <= this fraction of K
                                     # (guarantees >= 2x narrower sweeps)

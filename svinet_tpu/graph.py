@@ -1,6 +1,6 @@
 """Graph ingest and host-side network store.
 
-TPU-native equivalent of the reference's ``Network`` class
+Equivalent of the reference's ``Network`` class
 (reference: src/network.hh:22-216, src/network.cc:10-159): reads a
 tab/whitespace-separated edge list, dedups, drops self-loops, compacts
 external ids to sequence ids 0..n-1 in first-seen order, and builds the
@@ -400,7 +400,7 @@ class Network:
         the d contiguous row blocks of the row-sharded mesh, so most
         edges fall INSIDE one block. The sharded sweep then exchanges
         only the boundary rows its edge shard actually touches — the
-        TPU form of the reference's touched-rows-only reduce (its
+        sharded form of the reference's touched-rows-only reduce (its
         threads add back only the gamma_hat rows they touched,
         src/mmsbinfer.cc:1802-1808). (A plain BFS ordering was measured
         first: 0.2% cross-community noise edges make BFS frontiers leak

@@ -5,7 +5,8 @@ C++ (multithreaded mmap scanner, buffered writers), mirroring the
 reference's C++ data layer (reference: Network::read, src/network.cc:10-159;
 save_model writers, src/linksampling.cc:804-837). Python/numpy fallbacks
 keep everything working when the shared library hasn't been built; the
-library is built on first use when a toolchain is available.
+library is built on first use, and rebuilt when it is older than its
+sources, when a toolchain is available.
 """
 
 from __future__ import annotations
@@ -27,12 +28,23 @@ _lock = threading.Lock()
 _build_attempted = False
 
 
+def _stale() -> bool:
+    """True when the library is missing or older than a source it is
+    built from (a library built elsewhere, or before an edit, is rebuilt
+    rather than loaded)."""
+    if not os.path.exists(_SO_PATH):
+        return True
+    built = os.path.getmtime(_SO_PATH)
+    return any(os.path.getmtime(os.path.join(_NATIVE_DIR, src)) > built
+               for src in ("ingest.cpp", "Makefile"))
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _build_attempted
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_SO_PATH) and not _build_attempted:
+        if _stale() and not _build_attempted:
             _build_attempted = True
             try:
                 subprocess.run(["make", "-C", _NATIVE_DIR, "-s"],

@@ -25,22 +25,19 @@ def pad_edges(edges: np.ndarray, block: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def choose_edge_block(n_edges: int, k: int,
-                      vmem_budget_bytes: int = 1024 * 1024 * 1024) -> int:
+                      block_budget_bytes: int = 1024 * 1024 * 1024) -> int:
     """Pick the edge-block size for the sweep scan.
 
-    Measured on TPU v5e (ca-AstroPh, K=20): one flat gather-softmax-scatter
-    beats an 8192-edge scan by ~25% — lax.scan serializes blocks the
-    compiler could overlap. So: run FLAT whenever the per-block phi
-    intermediate (block * K * 4 bytes) fits the budget, and fall back to
-    the largest power-of-two block that does for huge edge sets.
+    One flat gather-softmax-scatter over all edges leaves the compiler
+    free to overlap work that a lax.scan over blocks serializes, so run
+    FLAT whenever the per-block phi intermediate (block * K * 4 bytes)
+    fits the budget, and fall back to the largest power-of-two block that
+    does for huge edge sets.
 
-    Budget: measured on the n=1M/K=500/E=20M stretch config (v5e, 16G HBM),
-    bigger blocks keep winning until HBM runs out — 131072-edge blocks
-    (256M budget) sweep at 4.1 Me/s, 524288 (1G) at 6.1, 1048576 (2G) at
-    6.5, and 2097152 OOMs next to the 3 * n * K state arrays. 1G is the
-    sweet spot with headroom for the fused multi-sweep path.
+    The 1 GiB default is not tuned for the GPU; it leaves ample room next
+    to the three (n, K) state arrays on an 80 GB card.
     """
-    limit = max(8192, vmem_budget_bytes // max(k * 4, 4))
+    limit = max(8192, block_budget_bytes // max(k * 4, 4))
     if n_edges <= limit:
         block = 1 << max(int(np.ceil(np.log2(max(n_edges, 1)))), 6)
         return min(block, limit)

@@ -14,8 +14,8 @@ src/mmsbinfer.hh:105-199):
 Both updates read the pre-round phi of the partner (Jacobi, not Gauss-
 Seidel — the reference stores phinext and copies after both updates).
 
-TPU-native design: run the fixed point for a whole block of B pairs at
-once — two (B,K) softmaxes per round on the VPU — inside one
+Vectorized design: run the fixed point for a whole block of B pairs at
+once — two (B,K) softmaxes per round — inside one
 lax.while_loop that exits when EVERY pair in the block has converged.
 Converged pairs are fixed points of the update, so extra rounds leave
 them bit-stable; the batched loop computes the same phis as the

@@ -4,7 +4,7 @@ The reference's FastQueue (reference: src/fastqueue.hh:22-305, used as
 ``SparseCounts = map<uint32_t, FastQueue>`` at src/fastqueue.hh:307)
 keeps, per node, only the top-k gamma entries plus cached psi sums for
 the uniform remainder, so the huge-K regime never materializes an (n,K)
-state. TPU-native redesign with static shapes:
+state. Redesign with static shapes:
 
   ids  (n,W) int32  — each node's top-W community ids
   vals (n,W) f32    — their gamma values

@@ -3,7 +3,7 @@
 
 The reference's pthread reduce adds back only the gamma_hat rows each
 thread actually touched (reference: src/mmsbinfer.cc:1802-1808); SURVEY
-§2 prescribes the TPU analog: "the 'only touched nodes' reduce becomes a
+§2 prescribes the sharded analog: "the 'only touched nodes' reduce becomes a
 sparse gather/scatter collective". The plain row-sharded sweep
 (parallel/mesh.py:make_rowsharded_*) instead moves the FULL (n,K) state
 per sweep — an all_gather of Elogpi and a psum_scatter of gamma_hat —

@@ -41,7 +41,7 @@ def edge_assignments(gamma, lam, edges, mask):
     (phi_k proportional to exp(Elogpi_p + Elogpi_q + Elogbeta_k0)).
 
     Blocked scan: the (E, K) phi intermediate never materializes — at the
-    n=1M/k=500 stretch a flat pass would need ~tens of GB of HBM. Blocks
+    n=1M/k=500 stretch a flat pass would need ~tens of GB of device memory. Blocks
     hold ~64M floats; edges are padded up to a whole number of blocks
     (mask filtering happens in extract_communities, so the padding rows
     are harmless)."""

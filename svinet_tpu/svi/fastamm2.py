@@ -1,6 +1,6 @@
 """FastAMM2 engine (-stratified -rnode) — stratified node SVI.
 
-TPU-native re-design of the reference's FastAMM2 (reference:
+JAX re-design of the reference's FastAMM2 (reference:
 src/fastamm2.cc:534-702): like FastAMM but with inf_epsilon = 0.5 and
 m = 10 non-informative sets of size n/m (src/fastamm2.cc:11-15, 1101);
 the preprocessed zero-sets are disabled (NULL, src/fastamm2.cc:1009).

@@ -1,6 +1,6 @@
 """FastInit engine (-findk) — community-count estimation.
 
-TPU-native re-design of the reference's FastInit
+JAX re-design of the reference's FastInit
 (reference: src/fastinit.cc:240-287): sparse label propagation where K is
 conceptually n but each node keeps only its top-`width` communities
 (width = max degree, reference: src/main.cc:321-327). Per sweep, every

@@ -1,6 +1,6 @@
 """MMSBOrig engine (-orig) — Airoldi et al. full-blockmodel batch VI.
 
-TPU-native re-design of the reference's MMSBInferOrig
+JAX re-design of the reference's MMSBInferOrig
 (reference: src/mmsbinferorig.cc:211-294): full K x K beta matrix with a
 point-estimated M-step beta_gh = sum y phi1_g phi2_h / sum phi1_g phi2_h,
 and a PhiComp2 local step over the K x K f matrix
@@ -15,7 +15,9 @@ the coupled update the (q,p) solution is the (p,q) solution with phi1/phi2
 swapped, so each unordered pair is solved once and contributes
 gamma_p += 2 phi1, gamma_q += 2 phi2 and the symmetrized K x K moment
 y*(phi1 phi2^T + phi2 phi1^T). The local step's K-vector-times-logf
-products run as (B,K)x(K,K) matmuls on the MXU.
+products run as (B,K)x(K,K) matmuls. Every float32 matrix product here
+passes precision=HIGHEST: the reference computes them in double, and a
+GPU would otherwise run them in TF32 (about three decimal digits).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from svinet_tpu.evals.likelihood import HeldoutResult
 from svinet_tpu.io.writers import write_groups
 from svinet_tpu.svi.base import EngineBase
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _phi2_fixed_point(elogpi_p, elogpi_q, logf1, logf0, y, max_iters,
                       thresh):
@@ -45,7 +49,8 @@ def _phi2_fixed_point(elogpi_p, elogpi_q, logf1, logf0, y, max_iters,
 
     def matvec(phi):
         # (B,K) @ (K,K)^T : row g = sum_h logf[g,h] phi_h
-        return jnp.where(yf, phi @ logf1.T, phi @ logf0.T)
+        return jnp.where(yf, jnp.matmul(phi, logf1.T, precision=_HIGHEST),
+                         jnp.matmul(phi, logf0.T, precision=_HIGHEST))
 
     def round_(state):
         i, phi1, phi2, _ = state
@@ -72,7 +77,7 @@ def orig_approx_elbo(gamma_new, gamma_old, beta_old, beta_new, pairs, y, w,
     feature: MMSBInferOrig::approx_log_likelihood,
     src/mmsbinferorig.cc:624-698, logged to logl.txt). The reference
     stores every pair's phi in an n x n x K D3 (mmsbinferorig.hh:92-101)
-    purely to reuse them here; on TPU the store would be n^2 K floats,
+    purely to reuse them here; on a device the store would be n^2 K floats,
     so the phis are RE-DERIVED per pair block from the same fixed point
     they were solved with — the E-step's expectations, i.e. gamma_old's
     Elogpi and the PRE-M-step beta_old (src/mmsbinferorig.cc:238-242) —
@@ -100,8 +105,10 @@ def orig_approx_elbo(gamma_new, gamma_old, beta_old, beta_new, pairs, y, w,
         phi1, phi2 = _phi2_fixed_point(elogpi_old[p], elogpi_old[q],
                                        logf1, logf0, yy, max_iters,
                                        thresh)
-        t1 = jnp.einsum("bg,gh,bh->b", phi1, lf1, phi2)
-        t0 = jnp.einsum("bg,gh,bh->b", phi1, lf0, phi2)
+        t1 = jnp.einsum("bg,gh,bh->b", phi1, lf1, phi2,
+                        precision=_HIGHEST)
+        t0 = jnp.einsum("bg,gh,bh->b", phi1, lf0, phi2,
+                        precision=_HIGHEST)
         pair = jnp.where(yy == 1, t1, t0)
         pair = pair + (phi1 * elogpi_new[p]).sum(-1) \
             + (phi2 * elogpi_new[q]).sum(-1) \
@@ -145,8 +152,8 @@ def orig_batch_step(gamma, beta, pairs, y, w, alpha,
         # symmetrized ordered-pair moments, weighted (B,K)x(B,K) -> (K,K)
         w1 = phi1 * wc
         yw1 = phi1 * (wc * yy[:, None])
-        outer_all = w1.T @ phi2
-        outer_y = yw1.T @ phi2
+        outer_all = jnp.matmul(w1.T, phi2, precision=_HIGHEST)
+        outer_y = jnp.matmul(yw1.T, phi2, precision=_HIGHEST)
         bnum = bnum + outer_y + outer_y.T
         bden = bden + outer_all + outer_all.T
         return (gacc, bnum, bden), None
@@ -170,7 +177,7 @@ def orig_edge_loglik(gamma, beta, pairs, y):
     pp = pi[pairs[:, 0]]
     qq = pi[pairs[:, 1]]
     rate = jnp.where(y[:, None, None] == 1, beta[None], 1.0 - beta[None])
-    s = jnp.einsum("bg,bgh,bh->b", pp, rate, qq)
+    s = jnp.einsum("bg,bgh,bh->b", pp, rate, qq, precision=_HIGHEST)
     return jnp.log(jnp.maximum(s, 1e-30))
 
 

@@ -7,8 +7,9 @@ The split mirrors the reference's phases: the per-link phi pass
 (src/linksampling.cc:526-545), and the s3 cross-moment pass
 (src/linksampling.cc:731-749). On a device mesh the two edge passes run on
 the local edge shard and their outputs (gacc (n,K), sumk (K,), s3 (K,)) are
-the ONLY cross-device traffic, psum-reduced over ICI — the TPU equivalent
-of the reference's serial thread reduce (src/mmsbinfer.cc:1770-1827).
+the ONLY cross-device traffic, psum-reduced across the mesh — the sharded
+equivalent of the reference's serial thread reduce
+(src/mmsbinfer.cc:1770-1827).
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def phi_pass(elogpi, elb0, edges, mask, num_blocks: int, conv=None
         gacc, sumk = carry
         e, m = blk
         p, q = e[:, 0], e[:, 1]
-        # rows may be stored bf16 (-bf16: halves the gather bytes, the
-        # roofline's dominant per-row term); the compute path is f32 —
+        # rows may be stored bf16 (-bf16: halves the gather bytes); the
+        # compute path is f32 —
         # cast AFTER the gather, accumulate in f32
         logits = (elogpi[p].astype(jnp.float32)
                   + elogpi[q].astype(jnp.float32) + elb0)
@@ -162,10 +163,10 @@ def fused_phi_s3_pass(packed, elb0, edges, mask, num_blocks: int
     """phi_pass and s3_pass in ONE edge sweep over a packed (n, 2K)
     array [Elogpi | mphi_prev] (-fuse-s3).
 
-    The roofline study (README "Roofline") shows the sweep is bound by
-    the per-row gather/scatter op rate (~12.3 ns fixed per row), so the
-    separate s3_pass's two extra row gathers per edge cost ~23% of the
-    sweep; gathering rows twice as wide costs only the marginal bytes.
+    The separate s3_pass gathers two more rows per edge; gathering rows
+    twice as wide here costs only the marginal bytes when the sweep is
+    bound by the number of row operations rather than by bytes (what
+    that share is on the GPU is not measured yet).
     The price is a one-sweep LAG on the cross-moment: s3 at sweep t
     uses mphi from sweep t-1 (the current sweep's mean indicators need
     this sweep's completed gacc, reference order
@@ -209,7 +210,7 @@ def fused_phi_s3_pass(packed, elb0, edges, mask, num_blocks: int
 def sparse_union_sweep_body(gamma, lam, mphi, edges, mask, deg,
                             consts: LSConsts, annealing, num_blocks: int,
                             W: int):
-    """Per-node top-W UNION sweep (-sparse-w): the TPU form of the
+    """Per-node top-W UNION sweep (-sparse-w): the static-shape form of the
     regime where the reference's active-community pruning actually wins
     — per-pair phi computed only over the union of the endpoints'
     active lists (reference: src/linksampling.cc:634-664). Gamma stays
@@ -302,7 +303,7 @@ def compact_elogpi(gamma_c, rest) -> jax.Array:
 def compact_sweep_body(gamma_c, lam_c, edges, mask, deg, consts: LSConsts,
                        rest, colmask, num_blocks: int,
                        freeze: bool = False, conv=None):
-    """One pruned sweep at the compacted width K_pad (TPU form of the
+    """One pruned sweep at the compacted width K_pad (dense-layout form of the
     reference's active-k pruning, src/linksampling.cc:634-664): identical
     math to _sweep_body restricted to the active columns. Padded columns
     (colmask 0) are excluded from the phi softmax via a -1e30 logit bias

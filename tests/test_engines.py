@@ -483,7 +483,7 @@ def test_engine_checkpoint_resume_roundtrip(tmp_path, assort_path):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
 def test_prune_engages_and_matches_dense(tmp_path, assort_path, fused):
-    """Active-K compaction (-prune, the TPU form of the reference's
+    """Active-K compaction (-prune, the dense-layout form of the reference's
     pruning, src/linksampling.cc:634-664): force a dead-column state,
     verify the engine compacts, sweeps at the narrow width, and produces
     the same trajectory as the dense path. NOTE (measured, round 4): on

@@ -84,24 +84,6 @@ def test_heldout_likelihood_reference_formula():
     assert res.avg0 == pytest.approx(lls[ys == 0].mean(), rel=1e-3)
 
 
-def test_pallas_digamma_matches_scipy():
-    from svinet_tpu.ops.pallas_digamma import pallas_digamma
-    rng = np.random.default_rng(1)
-    x = rng.uniform(0.005, 40.0, size=(300, 7)).astype(np.float32)
-    got = np.asarray(pallas_digamma(jnp.asarray(x)))
-    want = sp_digamma(x.astype(np.float64))
-    assert np.abs(got - want).max() < 5e-5
-
-
-def test_pallas_dirichlet_expectation_matches_dense():
-    from svinet_tpu.ops.pallas_digamma import dirichlet_expectation_pallas
-    rng = np.random.default_rng(2)
-    x = rng.uniform(0.05, 10.0, size=(64, 20)).astype(np.float32)
-    got = np.asarray(dirichlet_expectation_pallas(jnp.asarray(x)))
-    want = np.asarray(dirichlet_expectation(jnp.asarray(x)))
-    assert np.abs(got - want).max() < 3e-5
-
-
 def test_converged_of_flags():
     """Exactly one community with gamma-alpha >= 1 freezes the node
     (reference: check_and_set_converged, src/linksampling.cc:456-475)."""

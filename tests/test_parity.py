@@ -111,8 +111,8 @@ def test_astroph_linksampling_40iter_parity(tmp_path, monkeypatch):
 def test_astroph_linksampling_parity(tmp_path, monkeypatch):
     """ca-AstroPh n=17903 k=20 link-sampling, heldout 2% — the headline
     config. The reference rebuilt on this machine reaches best nshol
-    -0.0089..-0.0092 across seeds (BASELINE.md); ours lands around
-    -0.0088 on TPU and must stay better than -0.0105 here. Marked slow
+    -0.0089..-0.0092 across seeds (BASELINE.md); ours has landed around
+    -0.0088 and must stay better than -0.0105 here. Marked slow
     (several minutes on the CPU mesh); run with RUN_SLOW=1."""
     monkeypatch.chdir(tmp_path)
     cfg = parse_args([

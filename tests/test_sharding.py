@@ -334,7 +334,7 @@ def test_cli_mesh_minibatch_engines_match_single(tmp_path, monkeypatch,
                                                  mode, outname):
     """-mesh 8 for the minibatch engines (MMSBInfer batch/rnode/
     stratified-rpair): pairs sharded, gamma_hat/lambda_hat psum'd — must
-    match the single-device run with the same seed (the TPU analog of
+    match the single-device run with the same seed (the sharded analog of
     the reference's pthread map-reduce, src/mmsbinfer.cc:2400-2550;
     host-side sampling is identical, only the reduce order differs)."""
     from svinet_tpu.cli import main
